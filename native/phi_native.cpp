@@ -1,8 +1,8 @@
 // PHI-TPU native runtime components (host side).
 //
-// TPU-native equivalents of the reference's C substrate: streaming GFA and
+// Host-side equivalents of the reference's C substrate: streaming GFA and
 // FASTA/FASTQ ingest that lands directly in dense arrays ready for device
-// upload (replacing gfa-io.cpp/gfa-base.cpp/kseq.h in /root/reference/src),
+// upload (replacing the reference's gfa-io.cpp/gfa-base.cpp/kseq.h),
 // a Kahn toposort, and a banded block Myers bit-parallel edit distance for
 // the evaluation harness (the reference shells out to edlib-aligner,
 // data/edlib_edits.py).

@@ -23,7 +23,7 @@ class Options:
     debug: bool = False         # -d
     max_sweeps: int = 256       # solver fixpoint sweep cap
     lagrangian_rounds: int = 8  # reweighting round cap (certification/stall stop early)
-    device: str | None = None   # 'tpu' | 'cpu' | None (jax default)
+    device: str | None = None   # 'gpu' | 'cpu' | None (JAX's default backend)
     mesh_devices: int = 0       # >1: solve over a device mesh (hap x sp sharding)
     save_index: str | None = None  # write spectrum+join-hits checkpoint here
     load_index: str | None = None  # reuse a checkpoint (skips sketching);

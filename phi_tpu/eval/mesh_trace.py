@@ -154,7 +154,7 @@ def run(n_haps: int, length: int, coverage: float, seed: int,
 
     return {
         "data": "synthetic",
-        "backend": jax.default_backend(),
+        "backend": jax.devices()[0].platform,
         "n_devices": n_dev,
         "n_haps": n_haps, "length": length, "coverage": coverage,
         "byte_identical_mesh_vs_single": identical,

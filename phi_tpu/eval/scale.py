@@ -22,12 +22,16 @@ import sys
 
 import numpy as np
 
+from phi_tpu import CHECKOUT
 from phi_tpu.config import Options
 from phi_tpu.eval.edits import edit_stats
 from phi_tpu.eval.synth import sample_reads, synth_pangenome
 from phi_tpu.io.gfa import write_gfa
 
-CACHE_DIR = os.environ.get("PHI_TPU_SCALE_CACHE", "/tmp/phi_tpu_scale")
+# generated instances (GFA + reads + truth), reused across runs; .gitignore
+# lists the default directory
+CACHE_DIR = os.environ.get("PHI_TPU_SCALE_CACHE",
+                           os.path.join(CHECKOUT, ".instances"))
 
 
 def instance_dir(n_haps: int, length: int, coverage: float, seed: int,

@@ -1,7 +1,7 @@
 """Sketch/join throughput micro-benchmark (BASELINE.md north-star: read
 k-mer throughput, k-mers/s per chip, at 1 chip / 1 host / multi-device).
 
-Measures, on the active backend (TPU chip or host CPU):
+Measures, on the active backend (GPU or host CPU):
   * `sketch`  — minimizer extraction over a read-shaped concatenation
                 (the reference's hot loops #1/#2, ILP_index.cpp:359-493);
                 reports bases/s and k-mers/s (every window position is a
@@ -13,8 +13,9 @@ Measures, on the active backend (TPU chip or host CPU):
 
 Each metric reports the median of `repeats` warm runs with IQR and the
 raw observations (first run pays compile, excluded), plus roofline
-context on TPU: the HBM-bandwidth ceiling for the kernel's actual
-traffic and the achieved fraction. Output: one JSON line per metric.
+context on a GPU: the device-memory bandwidth ceiling for the stage's
+input traffic and the achieved fraction. Output: one JSON line per
+metric, naming the device it ran on.
 
     python -m phi_tpu.eval.throughput --mbases 64 --mesh 4
 """
@@ -30,20 +31,29 @@ import numpy as np
 
 from phi_tpu.eval.stats import summarize
 
-# v5e (TPU v5 lite) public per-chip ceilings (jax-ml.github.io/scaling-book):
-# HBM ~819 GB/s, VPU 8x128 lanes. The sketch kernel streams 2-bit packed
-# bases (0.25 B/base read) and is VPU-bound long before HBM matters; the
-# HBM ceiling is still the hard upper bound reported for context.
-V5E_HBM_BYTES_PER_S = 819e9
+# Published peak device-memory bandwidth per JAX device_kind (NVIDIA's
+# data sheet: H100 SXM5 80 GB HBM3, 3.35 TB/s at its 700 W limit). A
+# device that is not in the table is an error, not a default.
+PEAK_MEMORY_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
 SKETCH_BYTES_PER_BASE = 0.25  # 2-bit packed input; outputs are ~1e-3 of it
 
 
-def _roofline(backend: str, bases_per_s: float) -> dict:
-    if backend != "tpu":
+def _roofline(device, bases_per_s: float) -> dict:
+    """Memory-bandwidth roofline of the sketch input stream; none on the
+    host CPU."""
+    if device.platform == "cpu":
         return {}
-    ceiling = V5E_HBM_BYTES_PER_S / SKETCH_BYTES_PER_BASE
-    return {"hbm_roofline_bases_per_s": round(ceiling),
-            "hbm_roofline_fraction": round(bases_per_s / ceiling, 6)}
+    try:
+        peak = PEAK_MEMORY_BYTES_PER_S[device.device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peak bandwidth for {device.device_kind!r}; add "
+            "it to PEAK_MEMORY_BYTES_PER_S with its source") from None
+    ceiling = peak / SKETCH_BYTES_PER_BASE
+    return {"mem_roofline_bases_per_s": round(ceiling),
+            "mem_roofline_fraction": round(bases_per_s / ceiling, 6)}
 
 
 def _rand_reads(rng: np.random.Generator, total_bases: int,
@@ -121,12 +131,13 @@ def main(argv=None) -> int:
         devices = list(make_mesh(args.mesh).devices.reshape(-1))
         rows.append(bench_sketch(total, args.k, args.w, args.repeats,
                                  devices=devices))
-    backend = jax.default_backend()
+    dev = jax.devices()[0]
     lines = []
     for r in rows:
-        r["backend"] = backend
-        r["device"] = str(jax.devices()[0])
-        r.update(_roofline(backend, r["bases_per_s"]))
+        r["backend"] = dev.platform
+        r["device"] = dev.device_kind
+        r["device_count"] = len(jax.devices())
+        r.update(_roofline(dev, r["bases_per_s"]))
         line = json.dumps(r)
         lines.append(line)
         print(line, flush=True)

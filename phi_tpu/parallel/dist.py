@@ -1,7 +1,7 @@
 """Multi-host initialization and read-shard planning.
 
 The reference is single-process (SURVEY.md §2.4); here multi-host runs use
-jax.distributed over a TPU pod slice: each host loads its shard of the read
+jax.distributed over several GPU hosts: each host loads its shard of the read
 set, spectra are merged with a sorted all-gather, and the replicated-index
 DP (parallel/sharded.py) runs over the global mesh.
 """

@@ -25,8 +25,8 @@ handful of nodes.
 
 Every node evaluation is one exact-credit DP solve with modified
 occurrence weights — the device/native solver paths apply unchanged, and
-on TPUs only the weight vector is re-uploaded per node (occ index arrays
-are device-cached).
+on the device only the weight vector is re-uploaded per node (occ index
+arrays are device-cached).
 """
 
 from __future__ import annotations

@@ -191,7 +191,7 @@ def _esrc_fingerprint(graph: PangenomeGraph):
 
 def switch_sources_cached(graph: PangenomeGraph):
     """switch_sources depends only on the graph; cache it on the instance so
-    Lagrangian refinement rounds (and the compile-prewarm thread) never
+    Lagrangian refinement rounds never
     recompute the tens-of-millions-row expansion. A content-keyed single
     slot additionally survives re-tensorization (warm re-runs on the same
     input rebuild the graph object; the expansion is identical)."""
@@ -273,7 +273,7 @@ def max_kmer_span(graph: PangenomeGraph, k: int) -> int:
     """Upper bound on occ_end - occ_start for any k-mer anchor: the worst
     case starts at the last base of a node. Graph-only (no anchors), so the
     solver's W-layer count — and hence its compiled program shape — is known
-    right after graph load (compile prewarm) and stable across read sets."""
+    right after graph load and stable across read sets."""
     cache = getattr(graph, "_span_cache", None)
     if cache is None:
         cache = {}

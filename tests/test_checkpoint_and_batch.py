@@ -22,14 +22,17 @@ def test_index_checkpoint_roundtrip(tmp_path):
 
 
 def test_run_matrix_toy(tmp_path):
+    from phi_tpu.testing import write_tiny_instance
+    gfa, _ = write_tiny_instance(str(tmp_path))
     truth = tmp_path / "truth.fa"
-    # CHM13-free toy: use the reference toy graph; truth = hap4.4 sequence
-    truth.write_text(">t\nATCGAAAATACTTACCATG\n")
+    # truth = walk hapB.0; reads are one copy of it
+    hap_b = "ACGTTGCAAGGATCAGTCAGTGAACTTGCATGCA"
+    truth.write_text(f">t\n{hap_b}\n")
     reads = tmp_path / "reads.fa"
-    reads.write_text(">r1\nATCGAAAATACTTACCATG\n")
+    reads.write_text(f">r1\n{hap_b}\n")
     opt = Options(k=4, w=2, recombination=1.0)
     cells = [("toy", "1x", str(reads), str(truth))]
-    res = run_matrix("/root/reference/test/test.gfa", cells, opt,
+    res = run_matrix(gfa, cells, opt,
                      out_csv=str(tmp_path / "out.csv"), target_runs=2)
     assert len(res) == 1
     assert res[0].edit_distance == 0

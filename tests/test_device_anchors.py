@@ -1,6 +1,7 @@
 """Device-resident anchor pipeline (anchors/device.py) parity vs the host
 hit path — same retained occurrences, same filter decisions, same stats —
-plus an end-to-end pipeline run through the device path (interpret mode).
+plus an end-to-end pipeline run through the device path, here on the CPU
+backend with small rows.
 """
 
 import numpy as np
@@ -48,8 +49,7 @@ def test_device_anchor_parity(tmp_path, threshold):
 
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     res = join_anchors_device(graph, seqs, k, w, spectrum[0], spectrum[1],
-                              threshold, rows_per_call=2, super_blocks=2,
-                              interpret=True)
+                              threshold, rows_per_call=2, row_windows=4096)
     assert res is not None
     per_hap_min, occ = res
     assert np.array_equal(per_hap_min, want.per_hap_minimizers)
@@ -66,8 +66,9 @@ def test_device_anchor_parity(tmp_path, threshold):
 
 
 def test_device_anchor_zero_len_nodes(tmp_path):
-    """Zero-length (deletion-bubble) nodes: the delta plane must reproduce
-    searchsorted(cumlen, pos, 'right') - 1 exactly."""
+    """Zero-length (deletion-bubble) nodes: the node-start marks must
+    reproduce searchsorted(cumlen, pos, 'right') - 1 exactly (16-window
+    rows, so row continuation crosses the empty node too)."""
     gfa = tmp_path / "z.gfa"
     # diamond with an empty deletion arm: A -> (B | empty) -> C
     seg_a = "ACGTACGTAGCTTACGGATC"
@@ -88,8 +89,7 @@ def test_device_anchor_zero_len_nodes(tmp_path):
                                spectrum, 1.0)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     res = join_anchors_device(graph, seqs, k, w, spectrum[0], spectrum[1],
-                              1.0, rows_per_call=2, super_blocks=1,
-                              interpret=True)
+                              1.0, rows_per_call=2, row_windows=16)
     assert res is not None
     _, occ = res
     hap, s, e, kid = occ.materialize()
@@ -101,7 +101,7 @@ def test_device_anchor_zero_len_nodes(tmp_path):
 
 def test_pipeline_device_anchor_path(tmp_path, monkeypatch):
     """End-to-end pipeline through the device anchor + device solve path on
-    the CPU backend (interpret kernels): byte-identical to the host path."""
+    the CPU backend: byte-identical to the host path."""
     from phi_tpu.config import Options
     from phi_tpu.pipeline import run_pipeline
     gfa_path, reads = _instance(tmp_path, n_haps=4, length=6000)
@@ -133,8 +133,7 @@ def test_device_anchor_chunked_finalize(tmp_path, monkeypatch):
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     monkeypatch.setenv("PHI_TPU_FIN_CHUNK", str(1 << 12))  # force chunks
     res = join_anchors_device(graph, seqs, k, w, spectrum[0], spectrum[1],
-                              1.0, rows_per_call=2, super_blocks=2,
-                              interpret=True)
+                              1.0, rows_per_call=2, row_windows=4096)
     assert res is not None
     per_hap_min, occ = res
     assert occ.n_model == want.n_model_kmers
@@ -149,31 +148,31 @@ def test_device_anchor_chunked_finalize(tmp_path, monkeypatch):
 
 
 def test_v3_kernel_matches_v2(tmp_path):
-    """The v3 rows kernel (in-kernel pack-left compaction + slot probe)
-    must emit the exact flat hit stream of the v2 full-lane program —
-    same hits, same order, same dedup carries."""
+    """The row stage with the cuckoo slot probe must emit the exact flat
+    hit stream of the mixed-key bucketed probe (the fallback when no
+    cuckoo table can be built) — same hits, same order, same counts."""
     import jax.numpy as jnp
     from phi_tpu.ops.search import make_cuckoo
-    from phi_tpu.sketch.kernels import (_pallas_join_rows2_ck,
-                                        _pallas_join_rows3_ck, block_cap,
-                                        _pack_rows_2bit, pack_row_deltas,
-                                        join_caps, row_base_nodes, BLK)
-    from phi_tpu.anchors.device import pack_row_starts
-    k, w = 21, 7  # small w -> high emission density stresses the pack
-    gfa_path, reads = _instance(tmp_path, n_haps=3, length=2 * BLK + 500)
+    from phi_tpu.sketch import rows as rw
+    from phi_tpu.sketch.minimizer import prepare_spectrum_bucket
+    k, w = 21, 7  # small w -> high emission density stresses compaction
+    sup, R = 4096, 2
+    lanes = rw.row_lanes(sup)
+    gfa_path, reads = _instance(tmp_path, n_haps=3, length=2 * sup + 500)
     graph = tensorize(read_gfa(gfa_path))
     spectrum = _spectrum(reads, k, w)
     ck = make_cuckoo(np.asarray(spectrum[0]), np.asarray(spectrum[1]))
     assert ck is not None
     Thi, Tlo, Tid, seed, _M = ck
-    sp = (jnp.asarray(Thi), jnp.asarray(Tlo), jnp.asarray(Tid),
-          jnp.uint32(seed))
+    sp_ck = (jnp.asarray(Thi), jnp.asarray(Tlo), jnp.asarray(Tid),
+             jnp.uint32(seed))
+    m_np, lo_np, perm_np, off_np, _, rounds, _ = prepare_spectrum_bucket(
+        *spectrum)
+    sp_mx = tuple(jnp.asarray(a) for a in (m_np, lo_np, perm_np, off_np)) \
+        + (jnp.int32(rounds),)
 
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-    R, SB = 2, 2
     halo = k + w - 2
-    sup = SB * BLK
-    row_lanes = (SB + 1) * BLK
     rows = []
     for i, codes in enumerate(seqs):
         L = len(codes)
@@ -182,51 +181,48 @@ def test_v3_kernel_matches_v2(tmp_path):
                          1 if start else 0))
     rows += [(-1, 0, 0, 0)] * ((-len(rows)) % R)
     cumlens = graph.walk_node_cumlen
-    emitcap, cap_total = join_caps(w, SB, R)
-    C = block_cap(w)
-    S_cap = 1 << 12
-    carry2 = jnp.zeros(3, jnp.uint32)
-    carry3 = jnp.zeros(3, jnp.uint32)
+    emitcap, cap_total = rw.join_caps(w, sup, R)
+    S_cap = rw.row_start_cap(cumlens, rows, lanes)
     for b in range(len(rows) // R):
         batch = rows[b * R:(b + 1) * R]
-        words = jnp.asarray(_pack_rows_2bit(seqs, batch, row_lanes))
-        nd = jnp.asarray(pack_row_deltas(cumlens, batch, row_lanes))
-        st = jnp.asarray(pack_row_starts(cumlens, batch, row_lanes, S_cap))
-        nv = jnp.asarray(np.array([r[2] for r in batch], np.int32))
-        ct = jnp.asarray(np.array([r[3] for r in batch], np.int32))
-        bn = jnp.asarray(row_base_nodes(cumlens, batch))
-        hp = jnp.asarray(np.array([max(r[0], 0) for r in batch], np.int32))
-        o2 = _pallas_join_rows2_ck(words, nd, nv, ct, bn, hp, carry2, *sp,
-                                   k=k, w=w, n_rows=R, n_blocks=SB,
-                                   emitcap=emitcap, cap_total=cap_total,
-                                   interpret=True)
-        o3 = _pallas_join_rows3_ck(words, st, nv, ct, bn, hp, carry3, *sp,
-                                   k=k, w=w, n_rows=R, n_blocks=SB, C=C,
-                                   cap_total=cap_total, interpret=True)
-        assert int(np.asarray(o3[6]).max()) <= C  # no overflow in this test
-        assert np.array_equal(np.asarray(o2[0]), np.asarray(o3[0]))  # n_min
-        assert np.array_equal(np.asarray(o2[1]), np.asarray(o3[1]))  # n_hit
-        nh = int(np.asarray(o2[1]).sum())
+        args = (jnp.asarray(rw.pack_rows_2bit(seqs, batch, lanes)),
+                jnp.asarray(rw.pack_row_starts(cumlens, batch, lanes, S_cap)),
+                jnp.asarray(np.array([r[2] for r in batch], np.int32)),
+                jnp.asarray(np.array([r[3] for r in batch], np.int32)),
+                jnp.asarray(rw.row_base_nodes(cumlens, batch)),
+                jnp.asarray(np.array([max(r[0], 0) for r in batch],
+                                     np.int32)))
+        st = dict(k=k, w=w, emitcap=emitcap, cap_total=cap_total)
+        o_ck = rw.join_rows(*args, sp_ck, **st)
+        o_mx = rw.join_rows(*args, sp_mx, probe="mixed", **st)
+        assert int(np.asarray(o_ck[0]).max()) <= emitcap
+        assert np.array_equal(np.asarray(o_ck[0]), np.asarray(o_mx[0]))
+        assert np.array_equal(np.asarray(o_ck[1]), np.asarray(o_mx[1]))
+        nh = int(np.asarray(o_ck[1]).sum())
+        assert nh > 0
         for col in (2, 3, 4):
-            assert np.array_equal(np.asarray(o2[col])[:nh],
-                                  np.asarray(o3[col])[:nh]), col
-        assert np.array_equal(np.asarray(o2[5]), np.asarray(o3[5]))  # carry
-        carry2, carry3 = o2[5], o3[5]
+            assert np.array_equal(np.asarray(o_ck[col])[:nh],
+                                  np.asarray(o_mx[col])[:nh]), col
 
 
-def test_v3_overflow_falls_back(tmp_path, monkeypatch):
-    """A per-block compaction count above C must be detected (exact counts)
-    and route the whole join to the host path (return None)."""
+def test_v3_overflow_falls_back(tmp_path, monkeypatch, capsys):
+    """A row whose emissions exceed the compaction cap must be detected
+    (exact counts) and route the whole join to the host path (None, with a
+    [W::anchors] line)."""
+    from phi_tpu.sketch import rows as rw
     k, w = 21, 11
     gfa_path, reads = _instance(tmp_path)
     graph = tensorize(read_gfa(gfa_path))
     spectrum = _spectrum(reads, k, w)
-    monkeypatch.setenv("PHI_TPU_BLK_CAP", "256")  # far below real density
+    caps = rw.join_caps
+    monkeypatch.setattr(rw, "join_caps",
+                        lambda *a: (64, caps(*a)[1]))  # far below density
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     res = join_anchors_device(graph, seqs, k, w, spectrum[0], spectrum[1],
-                              1.0, rows_per_call=2, super_blocks=2,
-                              interpret=True)
+                              1.0, rows_per_call=2, row_windows=4096)
     assert res is None
+    assert "[W::anchors] host hit path: emit cap overflow" \
+        in capsys.readouterr().err
 
 
 def test_fold128_64_u32_matches_host():
@@ -234,7 +230,7 @@ def test_fold128_64_u32_matches_host():
     host fold128_64 for random 128-bit inputs."""
     import jax.numpy as jnp
     from phi_tpu.sketch.encode import fold128_64_np
-    from phi_tpu.sketch.kernels import fold128_64_u32
+    from phi_tpu.sketch.rows import fold128_64_u32
     rng = np.random.default_rng(0)
     hi64 = rng.integers(0, 1 << 62, 4096, dtype=np.uint64)
     lo64 = rng.integers(0, 1 << 64, 4096, dtype=np.uint64)
@@ -250,7 +246,7 @@ def test_fold128_64_u32_matches_host():
 
 
 def test_device_anchor_parity_wide_k(tmp_path):
-    """31 < k <= 63: the wide 4-word kernel's device anchor tables must be
+    """31 < k <= 63: the wide 4-word stage's device anchor tables must be
     bit-identical to the host path (native 128-bit scan, folded keys)."""
     k, w = 35, 9
     gfa_path, reads = _instance(tmp_path, n_haps=4, length=7000)
@@ -260,8 +256,7 @@ def test_device_anchor_parity_wide_k(tmp_path):
                                spectrum, 1.0)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     res = join_anchors_device(graph, seqs, k, w, spectrum[0], spectrum[1],
-                              1.0, rows_per_call=2, super_blocks=2,
-                              interpret=True)
+                              1.0, rows_per_call=2, row_windows=4096)
     assert res is not None
     per_hap_min, occ = res
     assert np.array_equal(per_hap_min, want.per_hap_minimizers)

@@ -44,39 +44,3 @@ def test_device_join_matches_host(monkeypatch):
         assert np.array_equal(got_pos, want_pos), f"chunk={chunk}"
         assert np.array_equal(got_id, want_id), f"chunk={chunk}"
         assert n_min == len(m.sketch_sequence(codes, k, w)[0])
-
-
-def test_inflated_prewarm_bucket_identical_results(monkeypatch):
-    # a prewarmed bucket larger than the spectrum's own pow2 bucket must be
-    # reused (sentinel padding) without changing any join result
-    import random
-    rng = random.Random(3)
-    seq = "".join(rng.choice("ACGT") for _ in range(8000))
-    codes = encode_seq(seq)
-    k, w = 11, 7
-    frags = [seq[i:i + 60] for i in range(0, 6000, 37)]
-    rc = np.full((len(frags), 60), 4, np.uint8)
-    ln = np.zeros(len(frags), np.int32)
-    for i, f in enumerate(frags):
-        rc[i, :len(f)] = encode_seq(f)
-        ln[i] = len(f)
-    spectrum = m.sketch_read_batch(rc, k, w, ln)
-    S = len(spectrum[0])
-    base_bucket = 1 << max(0, S - 1).bit_length()
-
-    def run():
-        return m.sketch_join_sequence(
-            codes, k, w, jnp.asarray(spectrum[0]), jnp.asarray(spectrum[1]),
-            hitcap=1 << 14)
-
-    monkeypatch.setattr(m, "_PREWARMED_JOIN_BUCKETS", set())
-    want = run()
-    monkeypatch.setattr(m, "_PREWARMED_JOIN_BUCKETS", {base_bucket * 8})
-    m_np, lo_np, perm_np, _, Sb, _, _ = m.prepare_spectrum_bucket(
-        spectrum[0], spectrum[1])
-    assert Sb == base_bucket * 8 and len(m_np) == Sb
-    assert (perm_np[S:] == -1).all() and len(np.unique(perm_np[:S])) == S
-    got = run()
-    assert got[0] == want[0]
-    assert np.array_equal(got[1], want[1])
-    assert np.array_equal(got[2], want[2])

@@ -156,8 +156,12 @@ def test_pair_isin_mixed_adaptive_bits_property():
 
 def test_cuckoo_table_roundtrip():
     import numpy as np
-    from phi_tpu.ops.search import make_cuckoo, pair_isin_cuckoo
+    from phi_tpu.ops.search import make_cuckoo, pair_isin_cuckoo_slot
     import jax.numpy as jnp
+
+    def pair_isin_cuckoo(Thi, Tlo, Tid, seed, q_hi, q_lo):
+        found, slot = pair_isin_cuckoo_slot(Thi, Tlo, seed, q_hi, q_lo)
+        return found, jnp.where(found, Tid[jnp.maximum(slot, 0)], -1)
     rng = np.random.default_rng(3)
     keys = np.unique(rng.integers(0, 2**62, 200_000, dtype=np.uint64))
     hi = (keys >> np.uint64(32)).astype(np.uint32)
@@ -179,3 +183,44 @@ def test_cuckoo_table_roundtrip():
                              jnp.asarray((q >> np.uint64(32)).astype(np.uint32)),
                              jnp.asarray(q.astype(np.uint32)))
     assert not bool(np.asarray(f2).any())
+
+
+def test_padded_spectrum_top_bucket_keys_found():
+    """prepare_spectrum_bucket pads the table to a power of two; the pads
+    must stay outside the search buckets, or a real key in the top mixed
+    bucket sits in a bucket of ~S pads that the bucket-derived rounds
+    cannot search (one missed hit per row at flagship widths)."""
+    import numpy as np
+    import jax.numpy as jnp
+
+    from phi_tpu.ops.search import MIX_C1, MIX_C2, pair_isin_mixed
+    from phi_tpu.sketch.minimizer import prepare_spectrum_bucket
+
+    rng = np.random.default_rng(11)
+    S = (1 << 15) + 3                       # table ~half pads
+    keys = np.unique(rng.integers(0, 1 << 62, S + 100, dtype=np.uint64))
+    hi = (keys >> np.uint64(32)).astype(np.uint32)[:S - 4]
+    lo = keys.astype(np.uint32)[:S - 4]
+    # four keys whose mixed image lands in the top first-probe bucket:
+    # hi = (target - lo * C2) * C1^-1 (mod 2^32)
+    inv_c1 = pow(MIX_C1, -1, 1 << 32)
+    top_lo = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
+    top_hi = [((0xFFFFFFF0 + i - int(l) * MIX_C2) * inv_c1) % (1 << 32)
+              for i, l in enumerate(top_lo)]
+    hi = np.concatenate([hi, np.array(top_hi, np.uint32)])
+    lo = np.concatenate([lo, top_lo.astype(np.uint32)])
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    order = np.argsort(key)
+    hi, lo = hi[order], lo[order]
+    m_np, lo_np, perm_np, off_np, Sb, rounds, bits = \
+        prepare_spectrum_bucket(hi, lo)
+    assert Sb > len(hi)
+    q_m = hi.astype(np.uint64) * MIX_C1 + lo.astype(np.uint64) * MIX_C2
+    top = (q_m & np.uint64(0xFFFFFFFF)) >> np.uint64(32 - bits)
+    assert (top == (1 << bits) - 1).sum() >= 4
+    found, ids = pair_isin_mixed(
+        jnp.asarray(m_np), jnp.asarray(lo_np), jnp.asarray(perm_np),
+        jnp.asarray(off_np), jnp.asarray(hi), jnp.asarray(lo),
+        rounds=rounds, bits=bits)
+    assert bool(np.asarray(found).all())
+    assert np.array_equal(np.asarray(ids), np.arange(len(hi)))

@@ -54,7 +54,10 @@ def test_sharded_step_matches_single_chip(n_devices):
 
 def test_graft_entry_compiles():
     import importlib.util
-    spec = importlib.util.spec_from_file_location("graft", "/root/repo/__graft_entry__.py")
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "graft", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "__graft_entry__.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()
@@ -63,14 +66,14 @@ def test_graft_entry_compiles():
     mod.dryrun_multichip(8)
 
 
-def test_mesh_pipeline_end_to_end_matches_single():
+def test_mesh_pipeline_end_to_end_matches_single(tmp_path):
     """--mesh N drives the FULL pipeline over the virtual mesh: dp-sharded
     read sketch, per-device haplotype joins, exact sharded solve — output
     byte-identical to the single-device run (VERDICT round 1 §5)."""
     from phi_tpu.config import Options
     from phi_tpu.pipeline import run_pipeline
-    toy = "/root/reference/test/test.gfa"
-    rd = "/root/reference/test/read.fa"
+    from phi_tpu.testing import write_tiny_instance
+    toy, rd = write_tiny_instance(str(tmp_path))
     r1 = run_pipeline(toy, rd, None, Options(k=4, w=2, recombination=1.0))
     r8 = run_pipeline(toy, rd, None,
                       Options(k=4, w=2, recombination=1.0, mesh_devices=8))

@@ -233,16 +233,16 @@ def test_refinement_closes_gap_random():
     assert res.dp_objective <= exact + 1e-3
 
 
-def test_bucketing_and_prewarm():
-    from phi_tpu.solve.dp import bucket_shapes, bucket_size, prewarm_solver
+def test_bucketing_and_prewarm(tmp_path):
+    from phi_tpu.solve.dp import bucket_shapes, bucket_size
+    from phi_tpu.testing import write_tiny_instance
     assert bucket_size(1) == 8 and bucket_size(8) == 8 and bucket_size(9) == 12
     assert bucket_size(13) == 16 and bucket_size(49) == 64 and bucket_size(96) == 96
     Hb, Pb, Eb, Vb = bucket_shapes(5, 1024, 100, 2048)
     assert Hb >= 5 and Pb > 1024 and Eb > 100 and Vb > 2048
-    # prewarm compiles the exact program the real solve then reuses
-    graph = tensorize(read_gfa(TOY))
-    prewarm_solver(graph, R=1.0)
-    read = "ATCGATCATACTTACCATG"
+    # the bucketed solve on a recombinant read reaches the exact optimum
+    graph = tensorize(read_gfa(write_tiny_instance(str(tmp_path))[0]))
+    read = "ACGTTGCATACCACAGTCAGTGAACTTGCATGCA"  # X A1 Y B2 Z
     anchors, tables, res = _full_solve(graph, [read], 4, 2, 1.0)
     exact, _ = brute_force_optimum(graph, tables, anchors)
     assert res.true_objective == pytest.approx(exact, abs=1e-3)

@@ -25,18 +25,20 @@ def test_cli_json_lines(capsys):
         assert {"metric", "bases_per_s", "kmers_per_s", "backend"} <= set(row)
 
 
-def test_hbm_budget_model():
-    from phi_tpu.eval.hbm_budget import budget
-    # materialized-W accounting (stream_w=False): the full [L,H,P] stack
-    b1 = budget(49, 1_600_000, 16, 4_000_000, 25_000_000, stream_w=False)
-    assert b1["fits_v5e"] and 5 < b1["total_gb"] < 10
-    # default auto rule mirrors the solver: past ~3 GB of stack the
-    # streaming-W path never materializes it (2 scratch planes)
-    b_auto = budget(49, 1_600_000, 16, 4_000_000, 25_000_000)
-    assert b_auto["total_gb"] < b1["total_gb"]
-    assert "streaming" in str(b_auto["per_device_bytes"])
-    b8 = budget(49, 1_600_000, 16, 4_000_000, 25_000_000, sp_shards=8,
-                stream_w=False)
-    # sp sharding divides the [*, P] planes (plus an L-column halo)
-    assert b8["total_gb"] < b1["total_gb"] / 2
-    assert b8["dims"]["P_per_device"] == -(-1_600_000 // 8) + 16
+def test_roofline_peak_table():
+    """Peaks come from the table keyed by device_kind: none on the host,
+    the published bandwidth on an H100, an error for an unknown card."""
+    import types
+
+    import pytest
+
+    from phi_tpu.eval.throughput import _roofline
+    assert _roofline(types.SimpleNamespace(platform="cpu"), 1e9) == {}
+    h100 = types.SimpleNamespace(platform="gpu",
+                                 device_kind="NVIDIA H100 80GB HBM3")
+    r = _roofline(h100, 1.34e12)
+    assert r["mem_roofline_bases_per_s"] == round(3.35e12 / 0.25)
+    assert r["mem_roofline_fraction"] == 0.1
+    with pytest.raises(ValueError, match="no published peak"):
+        _roofline(types.SimpleNamespace(platform="gpu",
+                                         device_kind="Unknown card"), 1.0)
